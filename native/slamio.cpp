@@ -1,8 +1,8 @@
-// slamio: native dataset prefetcher for the TPU-SLAM host runtime.
+// slamio: native dataset prefetcher for the SLAM host runtime.
 //
 // The reference is a single-process C++ system whose drivers decode images on
 // the critical path (Examples/ROS nodes; upstream mono_euroc loops). Here the
-// host runtime around the TPU programs gets a native data pipeline instead:
+// host runtime around the device programs gets a native data pipeline instead:
 // a pool of worker threads decodes frames (PGM / NPY / PNG-gray via libpng)
 // ahead of the tracking loop into a bounded in-order ring, so image IO never
 // stalls a device step. Exposed as a C ABI consumed from Python via ctypes

@@ -1,10 +1,10 @@
-"""orb_slam3_comments_ghr_tpu — a TPU-native visual / visual-inertial SLAM engine.
+"""orb_slam3_comments_ghr_tpu — a visual / visual-inertial SLAM engine in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of ORB-SLAM3
+Built from scratch in JAX/XLA with the capabilities of ORB-SLAM3
 (reference: Herong1212/ORB_SLAM3_comments_ghr, surveyed in /root/repo/SURVEY.md).
 
-Layout (TPU-first, not a port of the reference's pthread/pointer-graph design):
-  ops/       Lie-group math, camera models, low-level device kernels (Pallas/XLA)
+Layout (device programs over SoA state, not a port of the reference's pthread/pointer-graph design):
+  ops/       Lie-group math, camera models, low-level device kernels (XLA)
   frontend/  ORB feature pipeline: pyramid, FAST, orientation, rBRIEF, stereo match
   optim/     Estimation core: pose-only LM, windowed BA w/ Schur, inertial factors
   map/       SoA map state: keyframe/map-point pools, covisibility, Atlas

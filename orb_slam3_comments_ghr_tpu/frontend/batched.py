@@ -7,7 +7,7 @@ Here all levels are padded to the level-0 shape and stacked (L, H, W), so:
   * FAST / NMS / blur run once with a leading batch axis;
   * the intensity-centroid orientation becomes two 31x31 convolutions
     (moment maps m10/m01), turning 1024 patch gathers into one conv + one
-    1024-element gather — conv work rides the MXU;
+    1024-element gather — conv work becomes matmuls;
   * descriptors sample all (keypoint, pattern-bit) pairs with a single flat
     gather from the stacked blurred pyramid.
 
@@ -126,10 +126,9 @@ def _moment_kernels():
 
 def _ic_angles_at(P, xs, ys, lvls):
     """IC orientation at the selected keypoints only. A full-image 31x31
-    moment convolution is single-channel spatial work the MXU can't tile
-    (measured ~120 ms/frame on a v5e); slicing one 31x31 patch per keypoint
-    and reducing with a (961, 2) static weight matrix is one small matmul
-    (~1 M MACs). Numerically identical to the conv at every keypoint."""
+    moment convolution is single-channel spatial work over every pixel of
+    every level; slicing one 31x31 patch per keypoint and reducing with a
+    (961, 2) static weight matrix is one small matmul (~1 M MACs). Numerically identical to the conv at every keypoint."""
     kx, ky = _moment_kernels()
     S = 2 * brief.HALF_PATCH + 1
     kmat = jnp.stack([kx.reshape(-1), ky.reshape(-1)], axis=1)  # (961, 2)
@@ -164,9 +163,8 @@ def _blur_band(n: int) -> jnp.ndarray:
 
 
 def _batched_blur(P):
-    # separable Gaussian as two banded dense matmuls: single-channel spatial
-    # convs run on the VPU (~10 ms for the 8-level stack on v5e) while the
-    # same contraction as a matmul tiles onto the MXU (~2.6 ms)
+    # separable Gaussian as two banded dense matmuls (the contraction a
+    # single-channel spatial conv performs, in the form matrix units take)
     L, H, W = P.shape
     BR = _blur_band(H)
     BC = _blur_band(W)
@@ -206,8 +204,8 @@ _ROT_TAB = jnp.asarray(_rotation_tables())  # (B, 512)
 def _diff_matrix() -> np.ndarray:
     """(PATCH_SIDE^2, B*256) +-1 matrix: column (b, s) computes the rBRIEF
     pixel difference I[p2] - I[p1] for pattern pair s steered to bin b, so
-    bit = (patch @ D > 0). One dense MXU matmul replaces the (n, B*512)
-    patch gather, which lowers to slow dynamic addressing on TPU."""
+    bit = (patch @ D > 0). One dense matmul replaces the (n, B*512) patch
+    gather and its dynamic addressing."""
     tab = _rotation_tables()
     D = np.zeros((PATCH_SIDE * PATCH_SIDE, N_ROT_BINS * 256), np.float32)
     col = 0
@@ -227,9 +225,8 @@ def _batched_descriptors(blurred, xs, ys, lvls, angles, shapes):
     """rBRIEF via rotation-binned STATIC pattern differences: per keypoint
     slice one 48x48 patch (contiguous, cheap), compute all B*256 steered
     pixel differences with ONE dense matmul against a +-1 matrix, threshold,
-    then select the keypoint's rotation bin. Dense contractions are the
-    TPU's fast path; both the flat image gather (14x) and the per-patch
-    (B*512) gather (~5x) measured far slower than this matmul."""
+    then select the keypoint's rotation bin, in place of a flat image
+    gather or a per-patch (B*512) gather."""
     L, H, W = blurred.shape
     half = PATCH_SIDE // 2
     n = xs.shape[0]
@@ -247,10 +244,9 @@ def _batched_descriptors(blurred, xs, ys, lvls, angles, shapes):
     patches = jax.vmap(get_patch)(lvls, ys, xs).reshape(n, PATCH_SIDE * PATCH_SIDE)
     # Quantize the blurred patch to integers (the reference computes rBRIEF
     # on the uint8 GaussianBlur output, ORBextractor.cc:1631) and run the
-    # +-1 contraction as TWO int8 MXU matmuls (q = 2*hi + lo with
+    # +-1 contraction as TWO int8 matmuls (q = 2*hi + lo with
     # hi = q>>1 <= 127, lo = q&1): int32 accumulation makes the pixel
-    # difference EXACT for the rounded image, and the int8 path measured
-    # ~2x faster than the f32 HIGHEST matmul it replaces on a v5e.
+    # difference EXACT for the rounded image on any backend.
     q = jnp.clip(jnp.round(patches), 0, 255).astype(jnp.int32)
     hi = (q >> 1).astype(jnp.int8)
     lo = (q & 1).astype(jnp.int8)
@@ -295,8 +291,8 @@ def _per_keypoint_stages(P, xs, ys, lvls, shapes):
     keypoint. The previous schedule gathered twice (31x31 for IC moments,
     48x48 from a separately whole-image-blurred stack); slicing a single
     PATCH_IN patch from the unblurred pyramid and blurring IN-PATCH with two
-    small 'valid' matmuls drops the full-stack Gaussian blur (~1.5 ms) and
-    one 1024-way gather pass (~1.9 ms) from the per-frame program. Interior
+    small 'valid' matmuls drops the full-stack Gaussian blur and one
+    1024-way gather pass from the per-frame program. Interior
     blur values are identical to the whole-image blur; only pattern samples
     of keypoints within 27 px of a level border see (already zero-padded)
     context differences. Returns (angles, desc)."""
@@ -330,7 +326,7 @@ def _per_keypoint_stages(P, xs, ys, lvls, shapes):
         precision=jax.lax.Precision.DEFAULT,
     ).reshape(n, PATCH_SIDE * PATCH_SIDE)
 
-    # quantize + two int8 MXU matmuls (see _batched_descriptors)
+    # quantize + two int8 matmuls (see _batched_descriptors)
     q = jnp.clip(jnp.round(blurred), 0, 255).astype(jnp.int32)
     hi = (q >> 1).astype(jnp.int8)
     lo = (q & 1).astype(jnp.int8)

@@ -10,7 +10,7 @@ are therefore self-consistent across the whole framework (matching, BoW
 vocabulary, place recognition) without reproducing the reference's constants.
 
 Descriptors are bit-packed uint32[8] so Hamming distances reduce to
-XOR + population_count on the VPU.
+XOR + population_count.
 """
 
 from __future__ import annotations

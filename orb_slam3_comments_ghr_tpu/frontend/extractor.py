@@ -2,7 +2,7 @@
 
 Orchestrates pyramid -> FAST -> selection -> orientation -> descriptors,
 mirroring ORBextractor::operator() (reference: src/ORBextractor.cc:1557-1686)
-with TPU-native stages. The Python loop over the 8 pyramid levels is unrolled
+with batched device stages. The Python loop over the 8 pyramid levels is unrolled
 at trace time (static level shapes), so the whole extractor compiles to one
 XLA program.
 """

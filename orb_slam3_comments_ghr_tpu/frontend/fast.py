@@ -1,4 +1,4 @@
-"""FAST-16 corner detection, fully vectorized for the TPU VPU.
+"""FAST-16 corner detection, fully vectorized over the image stack.
 
 Replaces the per-cell cv::FAST calls in ORBextractor::ComputeKeyPointsOctTree
 (reference: src/ORBextractor.cc:1065-1184). The reference runs FAST with
@@ -8,7 +8,7 @@ fallback is a per-cell select — identical semantics, no scalar loops.
 
 The segment test (>=9 contiguous ring pixels brighter/darker than center +- t)
 is evaluated with a 16-bit ring bitmask against 16 rotated 9-bit masks: pure
-int32 VPU ops, no data-dependent control flow.
+elementwise int32 ops, no data-dependent control flow.
 """
 
 from __future__ import annotations
@@ -89,8 +89,8 @@ def dual_threshold_response(
     offsets — each iteration reads one shifted copy of the image and updates
     the bitwords/SAD margins of both thresholds, so XLA fuses everything into
     a couple of passes over the (L, H, W) stack instead of materializing two
-    (16, L, H, W) ring stacks (the stack version measured 2.5x slower on a
-    v5e; bit-exact equivalence is tested)."""
+    (16, L, H, W) ring stacks (bit-exact equivalence with the stacked form
+    is tested)."""
     wb_i = wd_i = wb_m = wd_m = jnp.zeros(img.shape, jnp.int32)
     sb_i = sd_i = sb_m = sd_m = jnp.zeros(img.shape, jnp.float32)
     for k, (dy, dx) in enumerate(RING):

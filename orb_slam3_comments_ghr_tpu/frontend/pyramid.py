@@ -34,9 +34,9 @@ import numpy as _np
 def _interp_matrix(n_out: int, n_in: int) -> jnp.ndarray:
     """(n_out, n_in) bilinear resampling matrix with half-pixel centers
     (cv::resize INTER_LINEAR convention). Dense on purpose: separable resize
-    becomes two matmuls, which the MXU executes orders of magnitude faster
-    than jax.image.resize's gather-based lowering on TPU (measured 26 ms ->
-    <1 ms for the whole 8-level pyramid)."""
+    becomes two matmuls instead of jax.image.resize's gather-based
+    lowering. At default precision a GPU may run them in TF32 (see
+    utils/precision.py)."""
     scale = n_out / n_in
     x = (_np.arange(n_out, dtype=_np.float64) + 0.5) / scale - 0.5
     j = _np.arange(n_in, dtype=_np.float64)

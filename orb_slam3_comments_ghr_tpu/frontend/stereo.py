@@ -1,6 +1,6 @@
 """Rectified stereo feature matching.
 
-TPU-native replacement for Frame::ComputeStereoMatches (reference:
+JAX replacement for Frame::ComputeStereoMatches (reference:
 src/Frame.cc:1117-1370): the reference builds per-row candidate lists, does a
 coarse Hamming match within a +-2*scale row band, then an 11x11 SAD sub-pixel
 refinement. Here the row-band + disparity-range constraint is a dense mask

@@ -47,8 +47,10 @@ def main(argv=None):
     from dataclasses import replace
 
     from ..parallel import distributed
+    from ..utils.cache import setup_compile_cache
 
     distributed.initialize()  # no-op unless a multi-process launch is set up
+    setup_compile_cache()
 
     from ..ops import cameras
     from ..system import SLAM

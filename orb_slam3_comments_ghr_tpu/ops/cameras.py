@@ -1,6 +1,6 @@
 """Camera projection models as vmappable pure functions.
 
-TPU-native replacement for the reference's GeometricCamera hierarchy
+JAX replacement for the reference's GeometricCamera hierarchy
 (reference: include/CameraModels/GeometricCamera.h:63-100,
 src/CameraModels/Pinhole.cpp, src/CameraModels/KannalaBrandt8.cpp).
 

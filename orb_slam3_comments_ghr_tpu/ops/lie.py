@@ -1,6 +1,6 @@
 """SO(3) / SE(3) / Sim(3) manifold operations with analytic Jacobians.
 
-TPU-native replacement for the reference's Sophus + g2o type stack
+JAX replacement for the reference's Sophus + g2o type stack
 (reference: Thirdparty/g2o/g2o/types/{se3quat.h,sim3.h}, include/ImuTypes.h:258-265
 right-Jacobian utilities, src/G2oTypes.cc ExpSO3/LogSO3).
 

@@ -1,16 +1,16 @@
 """Binary descriptor matching kernels.
 
-TPU-native replacement for the reference's ORBmatcher (src/ORBmatcher.cc):
+JAX replacement for the reference's ORBmatcher (src/ORBmatcher.cc):
 its nine scalar search loops all reduce to one primitive here — a masked
 Hamming-distance matrix + top-2 reduction with ratio test — with the mask
 encoding the search constraint (projection window, BoW node equality,
 epipolar band, grid cell).
 
-Two distance paths:
-  * `hamming_matrix` — XOR + population_count on the VPU.
-  * `hamming_matrix_mxu` — unpack bits to +-1 int8 and contract on the MXU
-    (d = (256 - a.b)/2); preferred for large candidate sets where the
-    256-deep contraction saturates the systolic array.
+Two distance paths, equal bit for bit:
+  * `hamming_matrix` — XOR + population_count, elementwise.
+  * `hamming_matrix_mxu` — unpack bits to +-1 int8 and contract as an int8
+    matmul with int32 accumulation (d = (256 - a.b)/2), which runs on the
+    matrix units; the default for the dense candidate sets here.
 
 Constants TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30 mirror ORBmatcher.cc:34-36.
 """
@@ -46,13 +46,13 @@ def unpack_pm1(d: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix_mxu(da: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
-    """Hamming distances via an int8 MXU contraction: for +-1 vectors,
+    """Hamming distances via an int8 matmul: for +-1 vectors,
     a.b = 256 - 2*hamming."""
     A = unpack_pm1(da)
     B = unpack_pm1(db)
     dot = jax.lax.dot_general(
         A, B, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32,
-        # integer contraction: keep the int8 MXU path even when the global
+        # integer contraction: keep the int8 path even when the global
         # matmul precision is 'highest' (which would force a f32 conversion)
         precision=jax.lax.Precision.DEFAULT,
     )

@@ -16,7 +16,7 @@ def triangulate(P1: jnp.ndarray, P2: jnp.ndarray, x1: jnp.ndarray, x2: jnp.ndarr
     """P1, P2: (3,4) or (...,3,4) projection matrices; x1, x2: (...,2)
     (homogeneous-normalized image coords matching P's convention).
     Returns (...,3) triangulated points (Euclidean)."""
-    # geometry-critical: TPU-default bf16 matmuls put a ~0.4% relative
+    # geometry-critical: reduced-precision (bf16) matmuls put a ~0.4% relative
     # error on triangulated MAP-POINT positions (centimeters at room scale),
     # which lower-bounds the whole system's ATE. These are tiny matmuls —
     # full f32 costs nothing.

@@ -1,7 +1,7 @@
 """Windowed / global bundle adjustment: batched Levenberg-Marquardt with
 sparse Schur-complement reduction of landmarks.
 
-TPU-native replacement for the reference's g2o BlockSolver_6_3 +
+JAX replacement for the reference's g2o BlockSolver_6_3 +
 OptimizationAlgorithmLevenberg pipeline with marginalized landmarks
 (reference: src/Optimizer.cc:1758 LocalBundleAdjustment, :2850
 BundleAdjustment with setMarginalized(true) at :1991 => Schur).
@@ -18,7 +18,7 @@ fused XLA program:
   Schur complement     : S = H_cc - sum_p W_p Hpp^-1 W_p^T assembled via a
                          (P, D, D) pair expansion + segment_sum into (K,K)
                          6x6 blocks; reduced system is dense (6K x 6K) and
-                         small — exactly what the MXU/Cholesky likes
+                         small — a dense matmul + Cholesky
   back-substitution    : dp = Hpp^-1 (b_p - W^T dxc), batched 3x3 solves
 
 Fixed cameras are handled by a large diagonal prior on their blocks (their
@@ -147,7 +147,7 @@ def _assemble(prob: BAProblem, r, Jc, Jp, w, row_mask, K: int):
     H_pp = jnp.einsum("pdri,pd,pdrj->pij", Jpm, w, Jpm)  # (P,3,3)
     b_p = -jnp.einsum("pdri,pd,pdr->pi", Jpm, w, rm)     # (P,3)
 
-    # Camera blocks via one-hot contraction (scatter-free; rides the MXU)
+    # Camera blocks via one-hot contraction (scatter-free; a dense einsum)
     G = jax.nn.one_hot(prob.obs_cam, K, dtype=Jcm.dtype)             # (P,D,K)
     Hc_blocks = jnp.einsum("pdri,pd,pdrj->pdij", Jcm, w, Jcm)
     bc_blocks = -jnp.einsum("pdri,pd,pdr->pdi", Jcm, w, rm)
@@ -178,7 +178,7 @@ def _reduced_system(obs_cam, H_cc, b_c, W, Hpp_inv, b_p, K: int):
     # one-hot camera-slot contraction: materializing the per-point pair
     # tensor (P,D,D,6,6) + a 524k-segment scatter-add costs ~75 MB of HBM
     # traffic per LM iteration; phrasing the same sums as dense einsums
-    # keeps everything on the MXU with (P,K,6,3)-sized intermediates
+    # keeps everything in matmuls with (P,K,6,3)-sized intermediates
     G = jax.nn.one_hot(obs_cam, K, dtype=W.dtype)          # (P,D,K)
     WHb = jnp.einsum("pdij,pjk,pk->pdi", W, Hpp_inv, b_p)  # (P,D,6)
     rhs = b_c - jnp.einsum("pdk,pdi->ki", G, WHb)
@@ -301,7 +301,7 @@ def bundle_adjust_resumable(
     (cam_R, cam_t, p, lam) so the host can chain bites with abort checks
     between them (mbStopGBA, LoopClosing.cc:3067). P must be a multiple of
     point_chunk (pad with invalid points)."""
-    with jax.default_matmul_precision("high"):
+    with jax.default_matmul_precision("highest"):
         K = prob.cam_R.shape[0]
         P, D = prob.obs_cam.shape
         C = P // point_chunk
@@ -388,7 +388,7 @@ def bundle_adjust_resumable(
 def classify_observations(cam: cameras.Camera, prob: BAProblem):
     """Final chi2 inlier classification for a (possibly updated) problem —
     the post-GBA outlier-erase pass (Optimizer.cc:2100-2160)."""
-    with jax.default_matmul_precision("high"):
+    with jax.default_matmul_precision("highest"):
         _, _, _, _, chi2, _, delta2 = _obs_terms(
             cam, prob, prob.cam_R, prob.cam_t, prob.p, use_huber=False
         )
@@ -412,7 +412,7 @@ def bundle_adjust_step(
     instead of stalling behind one long BA program (the reference gets the
     same property from preemptive CPU threads, Optimizer.cc:5082 vs
     Tracking thread)."""
-    with jax.default_matmul_precision("high"):
+    with jax.default_matmul_precision("highest"):
         K = prob.cam_R.shape[0]
 
         def body(_, carry):
@@ -456,9 +456,11 @@ def bundle_adjust(
     The iteration count is a static cap like the reference's
     optimizer.optimize(10) calls; early-exit-on-abort (mbAbortBA) is the
     host's job — it simply doesn't dispatch the next call. Traced under matmul
-    precision 'high' (bf16_3x: fp32-equivalent accuracy at ~2x the speed of
-    6-pass 'highest' for these magnitudes)."""
-    with jax.default_matmul_precision("high"):
+    precision 'highest': at 'high' an H100 runs the normal equations with
+    TF32 inputs, which still matched the CPU on a well-conditioned synthetic
+    problem (5e-7 relative cost) but raised the ATE of a live monocular map
+    with inline mapping fivefold (0.7 cm -> 3.6 cm, chip_smoke.py phase 5)."""
+    with jax.default_matmul_precision("highest"):
         return _bundle_adjust_body(cam, prob, iters, use_huber)
 
 

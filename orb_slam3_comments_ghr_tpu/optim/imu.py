@@ -1,6 +1,6 @@
 """IMU preintegration and state prediction.
 
-TPU-native replacement for IMU::Preintegrated (reference: src/ImuTypes.cc,
+JAX replacement for IMU::Preintegrated (reference: src/ImuTypes.cc,
 IntegrateNewMeasurement at :246-328): the per-sample forward integration with
 15x15 covariance propagation and bias Jacobians is a lax.scan over the padded
 sample buffer; reintegration with a new bias (Preintegrated::Reintegrate,

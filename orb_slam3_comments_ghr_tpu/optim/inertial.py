@@ -1,6 +1,6 @@
 """Inertial-only optimizations and visual-inertial pose tracking.
 
-TPU-native replacements for the reference's inertial estimators:
+JAX replacements for the reference's inertial estimators:
 
   inertial_init        : Optimizer::InertialOptimization (Optimizer.cc:3706)
                          — gravity direction Rwg (2-dof), monocular scale,
@@ -18,7 +18,7 @@ TPU-native replacements for the reference's inertial estimators:
                          Optimizer.cc:1663).
 
 All are small dense GN/LM problems with autodiff Jacobians — the variable
-counts (tens to hundreds) make jacfwd + dense Cholesky the right TPU shape.
+counts (tens to hundreds) make jacfwd + dense Cholesky the right shape.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Motion-only pose optimization (the per-frame hot path).
 
-TPU-native replacement for Optimizer::PoseOptimization (reference:
+JAX replacement for Optimizer::PoseOptimization (reference:
 src/Optimizer.cc:71-433): given the current frame's 3D-2D (and stereo 3D)
 matches, refine the SE3 world->camera pose by Levenberg-Marquardt with Huber
 weights, running 4 rounds x 10 iterations with chi-square inlier
@@ -96,8 +96,9 @@ def optimize_pose(
     Optimizer::PoseOptimization: inliers re-classified by chi2 each round,
     Huber kernel active in rounds 0-1 only (Optimizer.cc:310-350).
 
-    Traced under matmul precision 'highest': bf16 MXU accumulation in the
-    normal equations biases the pose by ~0.4 px worth of error."""
+    Traced under matmul precision 'highest': reduced-precision matmul
+    inputs (bf16, or TF32 on a GPU) in the normal equations bias the pose by
+    up to ~0.4 px worth of error."""
     with jax.default_matmul_precision("highest"):
         return _optimize_pose_body(cam, R0, t0, obs, iters_per_round)
 

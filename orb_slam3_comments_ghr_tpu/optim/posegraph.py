@@ -1,6 +1,6 @@
 """Essential-graph (pose-graph) optimization over Sim(3) / 4-DoF poses.
 
-TPU-native replacement for Optimizer::OptimizeEssentialGraph (reference:
+JAX replacement for Optimizer::OptimizeEssentialGraph (reference:
 src/Optimizer.cc:4527 loop variant, :5683 merge variant; 4-DoF inertial
 variant :4870). Vertices are per-keyframe Sim3 world->cam transforms; edges
 (spanning tree + covisibility weight>=100 + loop/merge edges) carry the
@@ -8,7 +8,7 @@ relative Sim3 measured from the pre-correction poses; loop edges carry the
 corrected relative transform. The Gauss-Newton normal equations are built
 from vmapped autodiff edge Jacobians and scatter-added into a dense (7K,7K)
 system — pose graphs here are a few hundred keyframes, squarely in dense-
-Cholesky territory on the MXU.
+Cholesky territory.
 
 For the inertial 4-DoF variant, pass dof4=True: roll/pitch and scale are
 frozen by large diagonal priors on those tangent components (the reference
@@ -169,7 +169,7 @@ def optimize_pose_graph_cg(prob: PoseGraphProblem, iters: int = 20,
     per-edge 7x7 blocks instead of the dense (7K,7K) Hessian, which at the
     reference's 10k-keyframe scale (Optimizer.cc:4539 BlockSolver_7_3 +
     sparse Eigen Cholesky) would be 200 GB dense. Each CG matvec is two
-    (E,7,7)x(E,7) einsums plus two segment scatters — VPU-trivial."""
+    (E,7,7)x(E,7) einsums plus two segment scatters."""
     K = prob.s.shape[0]
     dtype = prob.t.dtype
     ei, ej = prob.e_i, prob.e_j
@@ -235,13 +235,13 @@ def optimize_pose_graph_cg(prob: PoseGraphProblem, iters: int = 20,
 
 
 # keyframe count above which the dense (7K,7K) Cholesky path is replaced by
-# the matrix-free CG path (dense at K=512 is ~50 MB and still MXU-fast)
+# the matrix-free CG path (dense at K=512 is ~50 MB)
 DENSE_MAX_K = 512
 
 
 def solve_pose_graph(prob: PoseGraphProblem, iters: int = 20, dof4: bool = False):
     """Dispatch by problem size: dense Cholesky for small graphs (exact,
-    fastest on MXU), block-Jacobi CG for large ones (O(E) memory)."""
+    one dense solve), block-Jacobi CG for large ones (O(E) memory)."""
     if prob.s.shape[0] <= DENSE_MAX_K:
         return optimize_pose_graph(prob, iters=iters, dof4=dof4)
     return optimize_pose_graph_cg(prob, iters=iters, dof4=dof4)

@@ -1,6 +1,6 @@
 """Sim(3) estimation between two keyframes' matched map-point sets.
 
-TPU-native replacement for Sim3Solver (reference: src/Sim3Solver.cc — Horn
+JAX replacement for Sim3Solver (reference: src/Sim3Solver.cc — Horn
 closed-form 3-point similarity inside a RANSAC loop, scale fixed for
 stereo/RGB-D) and Optimizer::OptimizeSim3 (src/Optimizer.cc:4213 — g2o LM on
 a VertexSim3Expmap with bidirectional reprojection edges, chi2 10).

@@ -1,6 +1,6 @@
 """Two-view reconstruction for monocular map initialization.
 
-TPU-native replacement for TwoViewReconstruction (reference:
+JAX replacement for TwoViewReconstruction (reference:
 src/TwoViewReconstruction.cc): instead of two pthreads racing Homography vs
 Fundamental RANSAC (:124-129), ALL hypotheses of BOTH models are scored in one
 vmapped batch; model selection keeps the reference's score-ratio rule, motion

@@ -766,8 +766,8 @@ class LoopCloser:
 
         def run():
             # same host-CPU routing as the mapping worker (see
-            # system._worker_device): GBA must not contend with the
-            # latency-critical tracking stream on a remote-attached chip
+            # system._worker_device): GBA must not queue ahead of the
+            # latency-critical tracking stream on the accelerator
             dev = getattr(self, "worker_device", None)
             if dev is not None:
                 import jax as _jax

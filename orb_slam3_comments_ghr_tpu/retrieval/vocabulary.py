@@ -1,6 +1,6 @@
 """Binary visual vocabulary: k-ary tree of 256-bit centroids.
 
-TPU-native replacement for DBoW2::TemplatedVocabulary (reference:
+JAX replacement for DBoW2::TemplatedVocabulary (reference:
 Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h — k=10, L tree built with
 binary k-medians, transform() descends by min Hamming, :136-163). Here the
 tree is dense arrays (one (nodes, k, 8) uint32 centroid table per level);

@@ -52,6 +52,41 @@ def make_ring_world(seed: int, n_points: int = 6000, r_min: float = 6.0,
                  priority=priority)
 
 
+def ba_problem(n_points: int, n_kfs: int, obs_per_point: int = 8,
+               seed: int = 0):
+    """Perturbed full-map BA problem: `n_kfs` cameras on a 4 m baseline, the
+    first two fixed at their true poses, `n_points` landmarks 5-13 m out,
+    each observed by `obs_per_point` cameras spread over the baseline with
+    0.5 px pixel noise. Free poses are perturbed by ~0.02 rad / 2 cm and
+    landmarks by 2 cm, so LM has real work to do."""
+    from ..optim import ba
+
+    cam = cameras.euroc_cam0()
+    K, P, D = n_kfs, n_points, obs_per_point
+    kp, kn, kq, ku = jax.random.split(jax.random.PRNGKey(seed), 4)
+    uv = jax.random.uniform(kp, (P, 2)) * jnp.array([700.0, 440.0]) + 20.0
+    pts = cameras.unproject(cam, uv) * (jax.random.uniform(kn, (P, 1)) * 8 + 5)
+    cam_c = jnp.stack([jnp.linspace(-2, 2, K), jnp.zeros(K), jnp.zeros(K)], -1)
+    Rg = jnp.broadcast_to(jnp.eye(3), (K, 3, 3))
+    tg = -jnp.einsum("kij,kj->ki", Rg, cam_c)
+    obs_cam = (
+        (jnp.arange(P)[:, None] * 3 + jnp.arange(D)[None, :] * (K // D + 1)) % K
+    ).astype(jnp.int32)
+    pc = jnp.einsum("pdij,pj->pdi", Rg[obs_cam], pts) + tg[obs_cam]
+    uv_obs = cameras.project(cam, pc) + 0.5 * jax.random.normal(ku, (P, D, 2))
+    ok = cameras.in_image(cam, uv_obs, 2.0) & (pc[..., 2] > 0.5)
+    fixed = jnp.arange(K) < 2
+    dxi = jnp.where(fixed[:, None], 0.0, jax.random.normal(kq, (K, 6)) * 0.02)
+    dR, dt = lie.se3_exp(dxi)
+    R0, t0 = lie.se3_mul(dR, dt, Rg, tg)
+    return ba.BAProblem(
+        cam_R=R0, cam_t=t0, cam_fixed=fixed,
+        p=pts + 0.02, p_valid=jnp.ones((P,), bool),
+        obs_cam=obs_cam, obs_uv=uv_obs, obs_ur=jnp.full((P, D), -1.0),
+        obs_level=jnp.zeros((P, D), jnp.int32), obs_valid=ok,
+    )
+
+
 def circular_trajectory(n_frames: int, radius: float = 2.0, z_amp: float = 0.2,
                         look_at=(0.0, 0.0, 10.0), arc: float = 0.8,
                         outward: bool = False):

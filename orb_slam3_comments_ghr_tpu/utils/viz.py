@@ -2,8 +2,8 @@
 
 Headless replacement for the reference's Pangolin Viewer stack
 (src/Viewer.cc, src/FrameDrawer.cc current-frame overlay with keypoints and
-state text, src/MapDrawer.cc GL map/keyframe/covisibility rendering). TPU
-hosts have no GL; these render with numpy + PIL and are driven per-frame or
+state text, src/MapDrawer.cc GL map/keyframe/covisibility rendering).
+Accelerator hosts are often headless; these render with numpy + PIL and are driven per-frame or
 post-hoc (see io.run_slam --viz)."""
 
 from __future__ import annotations

@@ -1,13 +1,12 @@
-"""Distributed-BA scaling measurement (SURVEY §5.8 / north-star scaling
-efficiency).
+"""Distributed-BA scaling measurement.
 
-Runs the landmark-sharded bundle adjustment on meshes of 1..N devices and
-reports ms/iteration + parallel efficiency. On this machine the mesh is
-virtual CPU devices (xla_force_host_platform_device_count) — the numbers
-characterize the psum/compute split, not real ICI bandwidth; run on a real
-multi-chip slice unchanged for hardware numbers.
+Runs the landmark-sharded bundle adjustment on meshes of 1, 2, 4, ... up to
+`--devices` devices and reports ms per LM iteration and parallel efficiency.
+It uses the devices JAX finds and fails if there are fewer than `--devices`.
+`--rehearse-cpu` runs the same meshes on virtual CPU devices instead, which
+checks meshes and shardings but measures nothing about a real interconnect.
 
-    python scripts/bench_dba_scaling.py [--devices 8] [--points 8192] [--kfs 32]
+    python scripts/bench_dba_scaling.py [--devices 4] [--points 65536] [--kfs 128]
 """
 
 import argparse
@@ -21,79 +20,57 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--devices", type=int, default=8)
-    ap.add_argument("--points", type=int, default=8192)
-    ap.add_argument("--kfs", type=int, default=32)
+    ap.add_argument("--devices", type=int, default=4)
+    ap.add_argument("--points", type=int, default=65536)
+    ap.add_argument("--kfs", type=int, default=128)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--rehearse-cpu", action="store_true",
+                    help="run on virtual CPU devices (shape rehearsal only)")
     args = ap.parse_args()
 
     import jax
 
-    try:
-        # must run before any backend use; harmless if a big slice is attached
+    if args.rehearse_cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.devices)
-    except RuntimeError:
-        pass
-    import jax.numpy as jnp
+    from orb_slam3_comments_ghr_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
     import numpy as np
     from jax.sharding import Mesh
-    from orb_slam3_comments_ghr_tpu.ops import lie, cameras
-    from orb_slam3_comments_ghr_tpu.optim import ba
+    from orb_slam3_comments_ghr_tpu.ops import cameras
     from orb_slam3_comments_ghr_tpu.parallel import dba
+    from orb_slam3_comments_ghr_tpu.utils import synthetic
 
+    devices = jax.devices()
+    if len(devices) < args.devices:
+        sys.exit(f"need {args.devices} devices, found {len(devices)}: {devices}")
     cam = cameras.euroc_cam0()
-    K, P = args.kfs, args.points
-    key = jax.random.PRNGKey(0)
-    kp, kn, kq = jax.random.split(key, 3)
-    uv = jax.random.uniform(kp, (P, 2)) * jnp.array([700.0, 440.0]) + 20.0
-    pts = cameras.unproject(cam, uv) * (jax.random.uniform(kn, (P, 1)) * 8 + 5)
-    cam_c = jnp.stack([jnp.linspace(-2, 2, K), jnp.zeros(K), jnp.zeros(K)], -1)
-    Rg = jnp.broadcast_to(jnp.eye(3), (K, 3, 3))
-    tg = -jnp.einsum("kij,kj->ki", Rg, cam_c)
-    D = 8
-    obs_cam = (
-        (jnp.arange(P)[:, None] * 3 + jnp.arange(D)[None, :] * (K // D + 1)) % K
-    ).astype(jnp.int32)
-    pc = jnp.einsum("pdij,pj->pdi", Rg[obs_cam], pts) + tg[obs_cam]
-    uv_obs = cameras.project(cam, pc)
-    ok = cameras.in_image(cam, uv_obs, 2.0) & (pc[..., 2] > 0.5)
-    dxi = jax.random.normal(kq, (K, 6)) * 0.02
-    dR, dt = lie.se3_exp(dxi)
-    R0, t0 = lie.se3_mul(dR, dt, Rg, tg)
-    prob = ba.BAProblem(
-        cam_R=R0, cam_t=t0, cam_fixed=jnp.arange(K) < 2,
-        p=pts + 0.02, p_valid=jnp.ones((P,), bool),
-        obs_cam=obs_cam, obs_uv=uv_obs, obs_ur=jnp.full((P, D), -1.0),
-        obs_level=jnp.zeros((P, D), jnp.int32), obs_valid=ok,
-    )
+    prob = synthetic.ba_problem(args.points, args.kfs)
 
     results = {}
     n = 1
     while n <= args.devices:
-        devs = np.array(jax.devices()[:n])
-        mesh = Mesh(devs, ("mp",))
+        mesh = Mesh(np.array(devices[:n]), ("mp",))
         sharded = dba.shard_problem(prob, mesh)
         out = dba.bundle_adjust_sharded(cam, sharded, mesh, iters=args.iters)
         jax.block_until_ready(out)
-        t0_ = time.perf_counter()
+        t0 = time.perf_counter()
         for _ in range(3):
             out = dba.bundle_adjust_sharded(cam, sharded, mesh, iters=args.iters)
             jax.block_until_ready(out)
-        ms = (time.perf_counter() - t0_) / 3 / args.iters * 1000
-        results[n] = round(ms, 2)
+        results[n] = (time.perf_counter() - t0) / 3 / args.iters * 1000
         n *= 2
 
     base = results[1]
-    report = {
+    print(json.dumps({
         "ms_per_lm_iter": results,
-        "efficiency": {
-            k: round(base / (v * k), 3) for k, v in results.items()
-        },
-        "points": P, "keyframes": K, "obs_per_point": D,
-        "platform": jax.devices()[0].platform,
-    }
-    print(json.dumps(report))
+        "efficiency": {k: base / (v * k) for k, v in results.items()},
+        "points": args.points, "keyframes": args.kfs, "obs_per_point": 8,
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
+    }))
 
 
 if __name__ == "__main__":

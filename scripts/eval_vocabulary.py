@@ -32,6 +32,9 @@ def _build_frames(n_kf: int, n_feat: int, seed: int):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    from orb_slam3_comments_ghr_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     from orb_slam3_comments_ghr_tpu.ops import cameras
     from orb_slam3_comments_ghr_tpu.utils import gt_replay, synthetic

@@ -1,12 +1,11 @@
 #!/bin/bash
 # Sequential EuRoC GT-replay suite (the reference's dataset-run validation
 # across all 11 sequences, evaluation/Ground_truth/EuRoC_left_cam/*).
-# Usage: run_euroc_suite.sh <sensor> <out.jsonl> [platform] [seq...]
+# Usage: [JAX_PLATFORMS=cpu] run_euroc_suite.sh <sensor> <out.jsonl> [seq...]
 set -u
 SENSOR="${1:-imu-stereo}"
 OUT="${2:-/tmp/euroc_suite.jsonl}"
-PLATFORM="${3:-cpu}"
-shift 3 2>/dev/null || shift $#
+shift 2 2>/dev/null || shift $#
 SEQS=("$@")
 [ ${#SEQS[@]} -eq 0 ] && SEQS=(MH02 MH03 MH04 MH05 V101 V102 V103 V201 V202 V203)
 cd "$(dirname "$0")/.."
@@ -17,7 +16,7 @@ sysctl -w vm.max_map_count=1048576 >/dev/null 2>&1 || true
 for SEQ in "${SEQS[@]}"; do
   echo "=== $SEQ $SENSOR ===" >&2
   timeout 10800 python scripts/run_gt_replay.py \
-    --seq "$SEQ" --sensor "$SENSOR" --render features --platform "$PLATFORM" \
+    --seq "$SEQ" --sensor "$SENSOR" --render features \
     >> "$OUT" 2> "/tmp/replay_${SEQ}_${SENSOR}.log"
   echo "rc=$? $SEQ done" >&2
 done

@@ -39,6 +39,9 @@ def main():
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    from orb_slam3_comments_ghr_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

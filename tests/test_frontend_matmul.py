@@ -1,4 +1,4 @@
-"""The MXU-phrased frontend stages (matmul pyramid/blur, patch-moment
+"""The matmul-phrased frontend stages (matmul pyramid/blur, patch-moment
 angles) must match their direct conv/resize formulations."""
 
 import numpy as np

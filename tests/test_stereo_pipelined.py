@@ -1,8 +1,7 @@
 """Deep-pipelined stereo(-inertial) tracking: the stereo twin of the
 monocular pipeline (system.track_stereo_pipelined). The reference's flagship
-driver is stereo-inertial (ros_stereo_inertial.cc); on a remote-attached
-device the deep pipeline is what keeps its throughput at the device-compute
-rate."""
+driver is stereo-inertial (ros_stereo_inertial.cc); the deep pipeline
+overlaps its device work with the host's map bookkeeping."""
 
 import numpy as np
 import jax.numpy as jnp
